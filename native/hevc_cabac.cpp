@@ -1,11 +1,11 @@
-// Native host-side CABAC slice-data serializer for kvazaar_tpu.
+// Native host-side CABAC slice-data serializer for kvazaar_jax.
 //
-// Role: the sequential entropy-coding finalize stage of the TPU encoder
+// Role: the sequential entropy-coding finalize stage of the encoder
 // (SURVEY.md §2.4 — the reference runs this as a per-frame bitstream job,
 // src/encoder_state-bitstream.c:1066).  The device produces dense syntax
 // tensors (CU depth / intra modes / quantized levels); this module walks
 // the implied quadtree and arithmetic-codes the slice data.  It is a
-// performance mirror of kvazaar_tpu/bitstream/syntax.py, which remains
+// performance mirror of kvazaar_jax/bitstream/syntax.py, which remains
 // the tested oracle: outputs must be byte-identical.
 //
 // Build: g++ -O2 -shared -fPIC -o libhevc_cabac.so hevc_cabac.cpp

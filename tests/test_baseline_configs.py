@@ -8,9 +8,9 @@ does too."""
 import numpy as np
 import pytest
 
-from kvazaar_tpu.api import Encoder
-from kvazaar_tpu.bitstream.decoder import decode_stream
-from kvazaar_tpu.config import Config, config_from_preset
+from kvazaar_jax.api import Encoder
+from kvazaar_jax.bitstream.decoder import decode_stream
+from kvazaar_jax.config import Config, config_from_preset
 
 pytestmark = pytest.mark.smoke
 

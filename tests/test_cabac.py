@@ -10,12 +10,12 @@ import random
 
 import pytest
 
-from kvazaar_tpu.bitstream.bits import (
+from kvazaar_jax.bitstream.bits import (
     BitReader, BitWriter, emulation_prevention, nal_unit, split_annexb,
     strip_emulation_prevention)
-from kvazaar_tpu.bitstream.cabac import CabacDecoder, CabacEncoder
-from kvazaar_tpu.bitstream.contexts import Contexts
-from kvazaar_tpu.constants import SLICE_I
+from kvazaar_jax.bitstream.cabac import CabacDecoder, CabacEncoder
+from kvazaar_jax.bitstream.contexts import Contexts
+from kvazaar_jax.constants import SLICE_I
 
 pytestmark = pytest.mark.smoke
 

@@ -8,15 +8,15 @@ import dataclasses as dc
 import numpy as np
 import pytest
 
-from kvazaar_tpu.bitstream.decoder import decode_stream
-from kvazaar_tpu.config import Config
-from kvazaar_tpu.encoder.frame_encoder import IntraFrameEncoder
+from kvazaar_jax.bitstream.decoder import decode_stream
+from kvazaar_jax.config import Config
+from kvazaar_jax.encoder.frame_encoder import IntraFrameEncoder
 
 pytestmark = pytest.mark.heavy
 
 
 def test_aes_fips197_vector():
-    from kvazaar_tpu.bitstream.crypto import (_aes128_encrypt_block,
+    from kvazaar_jax.bitstream.crypto import (_aes128_encrypt_block,
                                               _expand_key)
     key = bytes(range(16))
     pt = bytes.fromhex("00112233445566778899aabbccddeeff")
@@ -50,7 +50,7 @@ def test_crypto_roundtrip_and_scramble():
     np.testing.assert_array_equal(frames[0][0][0], r0.recon_y)
     np.testing.assert_array_equal(frames[1][0][0], r1.recon_y)
     # Without the key (or a wrong one): parseable but scrambled.
-    from kvazaar_tpu.bitstream.crypto import key_from_string
+    from kvazaar_jax.bitstream.crypto import key_from_string
     wrong = dc.replace(enc.params,
                        crypto_key=key_from_string("wrong"))
     frames_w = decode_stream(stream, wrong)
@@ -98,7 +98,7 @@ def test_crypto_with_rate_control():
     """--crypto x --bitrate: the per-picture nonce counter is
     stream-global across the per-QP encoder instances frame-level RC
     spawns (the reference accepts the combination freely)."""
-    from kvazaar_tpu.api import Encoder
+    from kvazaar_jax.api import Encoder
     rng = np.random.default_rng(5)
     yy, xx = np.mgrid[0:64, 0:96]
     frames = []

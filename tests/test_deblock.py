@@ -4,7 +4,7 @@ scalar per-pixel implementation of H.265 8.7.2 (all-intra, bs=2)."""
 import numpy as np
 import pytest
 
-from kvazaar_tpu.ops.deblock import (BETA_TABLE, TC_TABLE, deblock_plane,
+from kvazaar_jax.ops.deblock import (BETA_TABLE, TC_TABLE, deblock_plane,
                                      luma_params)
 
 pytestmark = pytest.mark.heavy
@@ -120,7 +120,7 @@ def test_chroma_deblock_basic():
     # p0/q0 at each 8-grid edge must move toward each other or stay.
     assert got.shape == plane.shape
     # Spec scalar check on one edge, one row:
-    from kvazaar_tpu.encoder.frame_encoder import chroma_qp
+    from kvazaar_jax.encoder.frame_encoder import chroma_qp
     cqp = chroma_qp(30)
     tc = int(TC_TABLE[min(max(cqp + 2, 0), 53)])
     x, y = 8, 3

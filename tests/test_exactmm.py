@@ -6,8 +6,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from kvazaar_tpu.ops import transform as tr
-from kvazaar_tpu.ops.exactmm import (einsum_exact, einsum_exact_f32,
+from kvazaar_jax.ops import transform as tr
+from kvazaar_jax.ops.exactmm import (einsum_exact, einsum_exact_f32,
                                      einsum_exact_small,
                                      einsum_exact_split)
 

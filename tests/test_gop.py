@@ -5,9 +5,9 @@ src/encoderstate.c:990, src/inter.c:435, src/cfg.c GOP tables)."""
 
 import numpy as np
 
-from kvazaar_tpu.config import Config
-from kvazaar_tpu.api import Encoder
-from kvazaar_tpu.bitstream.decoder import decode_stream
+from kvazaar_jax.config import Config
+from kvazaar_jax.api import Encoder
+from kvazaar_jax.bitstream.decoder import decode_stream
 import pytest
 
 pytestmark = pytest.mark.heavy
@@ -126,9 +126,9 @@ def test_b_merge_skip_used_and_bit_exact():
 def test_no_bipred_b_frames():
     """--bipred 0: B slices use uni-prediction only, still bit-exact."""
     import numpy as np
-    from kvazaar_tpu.api import Encoder
-    from kvazaar_tpu.bitstream.decoder import decode_stream
-    from kvazaar_tpu.config import Config
+    from kvazaar_jax.api import Encoder
+    from kvazaar_jax.bitstream.decoder import decode_stream
+    from kvazaar_jax.config import Config
     rng = np.random.default_rng(8)
     w = h = 64
     cfg = Config(width=w, height=h, qp=32, gop_len=4, intra_period=0,

@@ -5,11 +5,11 @@ src/cfg.c)."""
 
 import numpy as np
 
-from kvazaar_tpu.api import Encoder
-from kvazaar_tpu.bitstream.bits import split_annexb
-from kvazaar_tpu.bitstream.decoder import decode_stream
-from kvazaar_tpu.bitstream.headers import compute_level_idc
-from kvazaar_tpu.config import Config
+from kvazaar_jax.api import Encoder
+from kvazaar_jax.bitstream.bits import split_annexb
+from kvazaar_jax.bitstream.decoder import decode_stream
+from kvazaar_jax.bitstream.headers import compute_level_idc
+from kvazaar_jax.config import Config
 import pytest
 
 pytestmark = pytest.mark.smoke
@@ -53,6 +53,6 @@ def test_aud_vui_sei_stream():
 
 
 def test_version_sei_payload():
-    from kvazaar_tpu.bitstream.headers import write_version_sei
+    from kvazaar_jax.bitstream.headers import write_version_sei
     sei = write_version_sei()
-    assert b"kvazaar_tpu" in sei
+    assert b"kvazaar_jax" in sei

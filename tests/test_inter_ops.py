@@ -6,7 +6,7 @@ import pytest
 
 import jax.numpy as jnp
 
-from kvazaar_tpu.ops.inter import (CHROMA_FILTERS, LUMA_FILTERS,
+from kvazaar_jax.ops.inter import (CHROMA_FILTERS, LUMA_FILTERS,
                                    mc_chroma, mc_luma, sad_full_search)
 
 pytestmark = pytest.mark.smoke
@@ -129,8 +129,8 @@ def test_sad_full_search_finds_shift():
 
 
 def test_cand_scalar_matches_vectorized():
-    from kvazaar_tpu.encoder.geometry import make_intra_plan
-    from kvazaar_tpu.encoder.inter_cands import (
+    from kvazaar_jax.encoder.geometry import make_intra_plan
+    from kvazaar_jax.encoder.inter_cands import (
         amvp_candidates, amvp_pair_at, merge_candidates, merge_list_at)
     rng = np.random.default_rng(5)
     plan = make_intra_plan(128, 128, 16, True)
@@ -153,7 +153,7 @@ def test_cand_scalar_matches_vectorized():
 def test_sad_surfaces_multi_matches_per_size():
     """The pooled SAD pyramid is bit-identical to independent per-size
     surfaces (SAD is additive over sub-blocks)."""
-    from kvazaar_tpu.ops.inter import sad_surfaces, sad_surfaces_multi
+    from kvazaar_jax.ops.inter import sad_surfaces, sad_surfaces_multi
     rng = np.random.default_rng(7)
     h, w, r = 128, 192, 8
     cur = jnp.asarray(rng.integers(0, 256, (h, w), np.int32))
@@ -168,7 +168,7 @@ def test_sad_surfaces_multi_matches_per_size():
 @pytest.mark.smoke
 def test_sad_surfaces_multi_crop_grid():
     """A plane not divisible by 64 yields the 64-aligned-crop grid."""
-    from kvazaar_tpu.ops.inter import sad_surfaces_multi
+    from kvazaar_jax.ops.inter import sad_surfaces_multi
     rng = np.random.default_rng(8)
     h, w, r = 96, 160, 4      # 32-aligned, not 64-aligned
     cur = jnp.asarray(rng.integers(0, 256, (h, w), np.int32))

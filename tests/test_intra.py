@@ -6,7 +6,7 @@ match a direct transcription of the spec equations."""
 import numpy as np
 import jax.numpy as jnp
 
-from kvazaar_tpu.ops import intra
+from kvazaar_jax.ops import intra
 import pytest
 
 pytestmark = pytest.mark.smoke

@@ -10,9 +10,9 @@ serialization (src/encode_coding_tree.c:683), DST dispatch
 import numpy as np
 import pytest
 
-from kvazaar_tpu.api import Encoder
-from kvazaar_tpu.bitstream.decoder import decode_stream
-from kvazaar_tpu.config import Config
+from kvazaar_jax.api import Encoder
+from kvazaar_jax.bitstream.decoder import decode_stream
+from kvazaar_jax.config import Config
 
 pytestmark = pytest.mark.smoke
 
@@ -54,7 +54,7 @@ def test_dst4_matches_numpy_spec():
     8.6.4.1 (the 4x4 DST matrix applied with the standard shifts)."""
     import jax.numpy as jnp
 
-    from kvazaar_tpu.ops.transform import (dst4_matrix_np,
+    from kvazaar_jax.ops.transform import (dst4_matrix_np,
                                            forward_transform,
                                            inverse_transform)
     rng = np.random.default_rng(0)

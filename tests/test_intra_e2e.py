@@ -2,15 +2,15 @@
 
 encoder recon (device wavefront, closed loop) must EXACTLY equal the
 reconstruction our oracle decoder derives from the emitted bitstream —
-the TPU-build stand-in for 'HM can decode it and checksums match'.
+this encoder's stand-in for 'HM can decode it and checksums match'.
 """
 
 import numpy as np
 import pytest
 
-from kvazaar_tpu.bitstream.decoder import decode_stream
-from kvazaar_tpu.config import Config
-from kvazaar_tpu.encoder.frame_encoder import IntraFrameEncoder, psnr
+from kvazaar_jax.bitstream.decoder import decode_stream
+from kvazaar_jax.config import Config
+from kvazaar_jax.encoder.frame_encoder import IntraFrameEncoder, psnr
 
 pytestmark = pytest.mark.heavy
 

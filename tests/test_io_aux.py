@@ -6,7 +6,7 @@ import os
 import numpy as np
 import pytest
 
-from kvazaar_tpu.io.yuv import (frame_size_bytes, read_frames,
+from kvazaar_jax.io.yuv import (frame_size_bytes, read_frames,
                                 read_frames_async, write_frame)
 
 pytestmark = pytest.mark.smoke
@@ -111,7 +111,7 @@ def _frame_args(seed, bits=1000):
 
 
 def test_checkpoint_roundtrip(tmp_path, monkeypatch):
-    from kvazaar_tpu.checkpoint import Checkpointer, CheckpointMismatch
+    from kvazaar_jax.checkpoint import Checkpointer, CheckpointMismatch
     log = str(tmp_path / "ckpt.log")
     monkeypatch.setenv("CHECKPOINTS", "record")
     monkeypatch.setenv("CHECKPOINTS_FILE", log)
@@ -136,7 +136,7 @@ def test_checkpoint_roundtrip(tmp_path, monkeypatch):
 
 
 def test_checkpoint_inactive_by_default(monkeypatch):
-    from kvazaar_tpu.checkpoint import Checkpointer
+    from kvazaar_jax.checkpoint import Checkpointer
     monkeypatch.delenv("CHECKPOINTS", raising=False)
     ck = Checkpointer()
     assert not ck.active
@@ -145,7 +145,7 @@ def test_checkpoint_inactive_by_default(monkeypatch):
 
 def test_cli_flag_mapping():
     """CLI flags land on the config (no encode)."""
-    from kvazaar_tpu.cli import build_argparser
+    from kvazaar_jax.cli import build_argparser
     ap = build_argparser()
     args = ap.parse_args([
         "-i", "x.yuv", "--input-res", "64x64", "-o", "y.hevc",
@@ -156,7 +156,7 @@ def test_cli_flag_mapping():
 
 
 def test_level_tier_config():
-    from kvazaar_tpu.config import Config
+    from kvazaar_jax.config import Config
     cfg = Config(width=1920, height=1080, qp=30, level="4.1").validate()
     assert cfg.level == "4.1"
     with pytest.raises(ValueError):
@@ -171,8 +171,8 @@ def test_level_tier_config():
 
 def test_forced_level_reaches_sps():
     import numpy as np
-    from kvazaar_tpu.config import Config
-    from kvazaar_tpu.encoder.frame_encoder import IntraFrameEncoder
+    from kvazaar_jax.config import Config
+    from kvazaar_jax.encoder.frame_encoder import IntraFrameEncoder
     cfg = Config(width=64, height=64, qp=30, level="5.1").validate()
     enc = IntraFrameEncoder(cfg)
     assert enc.params.level_idc == 153
@@ -193,7 +193,7 @@ def test_cli_stats_and_threads(tmp_path):
                 np.uint8).tobytes())
             f.write(np.full((32, 32), 110, np.uint8).tobytes())
             f.write(np.full((32, 32), 130, np.uint8).tobytes())
-    from kvazaar_tpu.cli import main
+    from kvazaar_jax.cli import main
     rc = main(["-i", str(p), "--input-res", "64x64", "-o",
                str(tmp_path / "o.hevc"), "-q", "32", "-p", "1",
                "--threads", "2", "--owf", "2", "--stats",
@@ -205,8 +205,8 @@ def test_async_feed_drain():
     """Reference-shaped feed/drain (kvazaar_encode async contract):
     results trail the feed by the pipeline depth and flush(None)
     drains the tail."""
-    from kvazaar_tpu.api import Encoder
-    from kvazaar_tpu.config import Config
+    from kvazaar_jax.api import Encoder
+    from kvazaar_jax.config import Config
     rng = np.random.default_rng(9)
     w = h = 64
     enc = Encoder(Config(width=w, height=h, qp=32, intra_period=0,
@@ -225,7 +225,7 @@ def test_async_feed_drain():
 
 
 def test_profiler_phases_and_trace(tmp_path):
-    from kvazaar_tpu.profiler import device_trace, phase, phases
+    from kvazaar_jax.profiler import device_trace, phase, phases
     phases.reset()
     with phase("demo"):
         pass

@@ -9,21 +9,21 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from kvazaar_tpu.bitstream.bits import BitReader, BitWriter
-from kvazaar_tpu.bitstream.cabac import CabacDecoder, CabacEncoder
-from kvazaar_tpu.bitstream.contexts import Contexts
-from kvazaar_tpu.bitstream.decoder import decode_stream
-from kvazaar_tpu.bitstream.headers import StreamParams
-from kvazaar_tpu.bitstream.syntax import (FrameData, SliceDataDecoder,
+from kvazaar_jax.bitstream.bits import BitReader, BitWriter
+from kvazaar_jax.bitstream.cabac import CabacDecoder, CabacEncoder
+from kvazaar_jax.bitstream.contexts import Contexts
+from kvazaar_jax.bitstream.decoder import decode_stream
+from kvazaar_jax.bitstream.headers import StreamParams
+from kvazaar_jax.bitstream.syntax import (FrameData, SliceDataDecoder,
                                           SliceDataEncoder)
-from kvazaar_tpu.config import Config
-from kvazaar_tpu.constants import SLICE_I
+from kvazaar_jax.config import Config
+from kvazaar_jax.constants import SLICE_I
 
 pytestmark = pytest.mark.heavy
 
 
 def test_quant_ops_array_qp_match_scalar():
-    from kvazaar_tpu.ops.quant import (dequantize, quantize,
+    from kvazaar_jax.ops.quant import (dequantize, quantize,
                                        quantize_rdoq)
     rng = np.random.default_rng(0)
     n = 10
@@ -51,7 +51,7 @@ def test_quant_ops_array_qp_match_scalar():
 
 
 def test_deblock_qp_map_uniform_equals_scalar():
-    from kvazaar_tpu.ops.deblock import deblock_frame
+    from kvazaar_jax.ops.deblock import deblock_frame
     h = w = 64
     s = 16
     yy, xx = np.mgrid[0:h, 0:w]
@@ -130,7 +130,7 @@ def _synth(rng, w, h, i=0):
 
 
 def test_dqp_i_p_e2e_bit_exact():
-    from kvazaar_tpu.encoder.frame_encoder import IntraFrameEncoder
+    from kvazaar_jax.encoder.frame_encoder import IntraFrameEncoder
     rng = np.random.default_rng(11)
     w = h = 128
     cfg = Config(width=w, height=h, qp=30, bitrate=400000,
@@ -156,7 +156,7 @@ def test_dqp_i_p_e2e_bit_exact():
 def test_lcu_rc_api_stream():
     """--bitrate with LCU allocation: streams decode, per-CTU weights
     feed back, and the bitrate lands in a sane band."""
-    from kvazaar_tpu.api import Encoder
+    from kvazaar_jax.api import Encoder
     rng = np.random.default_rng(3)
     w = h = 128
     n = 6
@@ -181,7 +181,7 @@ def test_lcu_rc_api_stream():
 
 
 def test_roi_and_aq_e2e(tmp_path):
-    from kvazaar_tpu.api import Encoder
+    from kvazaar_jax.api import Encoder
     rng = np.random.default_rng(5)
     w = h = 128
     roi = tmp_path / "roi.txt"
@@ -230,7 +230,7 @@ def test_config_dqp_combos():
 def test_gop_bitrate_frame_rc():
     """B-pyramid + --bitrate: frame-level R-lambda drives per-frame QP
     and the stream still decodes bit-exact (driver config #5 shape)."""
-    from kvazaar_tpu.api import Encoder
+    from kvazaar_jax.api import Encoder
     rng = np.random.default_rng(7)
     w = h = 128
     cfg = Config(width=w, height=h, qp=30, bitrate=500000,

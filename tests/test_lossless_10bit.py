@@ -4,9 +4,9 @@ BASELINE.json config #5 requirements."""
 import numpy as np
 import pytest
 
-from kvazaar_tpu.bitstream.decoder import decode_stream
-from kvazaar_tpu.config import Config
-from kvazaar_tpu.encoder.frame_encoder import IntraFrameEncoder
+from kvazaar_jax.bitstream.decoder import decode_stream
+from kvazaar_jax.config import Config
+from kvazaar_jax.encoder.frame_encoder import IntraFrameEncoder
 
 pytestmark = pytest.mark.heavy
 
@@ -49,7 +49,7 @@ def test_10bit_intra_e2e():
     np.testing.assert_array_equal(ry, res.recon_y)
     np.testing.assert_array_equal(rcb, res.recon_cb)
     np.testing.assert_array_equal(rcr, res.recon_cr)
-    from kvazaar_tpu.encoder.frame_encoder import psnr
+    from kvazaar_jax.encoder.frame_encoder import psnr
     assert psnr(res.recon_y, y.astype(np.int32), 10) > 34.0
 
 

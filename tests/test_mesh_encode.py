@@ -8,9 +8,9 @@ OWF/WPP/tiles determinism sweep (tests/test_owf_wpp_tiles.sh)."""
 import numpy as np
 import pytest
 
-from kvazaar_tpu.bitstream.decoder import decode_stream
-from kvazaar_tpu.config import Config
-from kvazaar_tpu.encoder.frame_encoder import IntraFrameEncoder
+from kvazaar_jax.bitstream.decoder import decode_stream
+from kvazaar_jax.config import Config
+from kvazaar_jax.encoder.frame_encoder import IntraFrameEncoder
 
 pytestmark = pytest.mark.smoke
 

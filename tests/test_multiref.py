@@ -9,9 +9,9 @@ lp-gop processing (src/cfg.c:1237), RPS emission
 
 import numpy as np
 
-from kvazaar_tpu.api import Encoder
-from kvazaar_tpu.bitstream.decoder import decode_stream
-from kvazaar_tpu.config import Config, lp_gop_table
+from kvazaar_jax.api import Encoder
+from kvazaar_jax.bitstream.decoder import decode_stream
+from kvazaar_jax.config import Config, lp_gop_table
 import pytest
 
 pytestmark = pytest.mark.heavy

@@ -1,17 +1,17 @@
 """Native (C++) slice serializer must be byte-identical to the Python
-oracle — the TPU-build analogue of the reference's generic-vs-SIMD
+oracle — this encoder's analogue of the reference's generic-vs-SIMD
 strategy equivalence tests (tests/test_strategies.c)."""
 
 import numpy as np
 import pytest
 
-from kvazaar_tpu.bitstream import native
-from kvazaar_tpu.bitstream.bits import BitWriter
-from kvazaar_tpu.bitstream.cabac import CabacEncoder
-from kvazaar_tpu.bitstream.contexts import Contexts
-from kvazaar_tpu.bitstream.headers import StreamParams
-from kvazaar_tpu.bitstream.syntax import SliceDataEncoder
-from kvazaar_tpu.constants import SLICE_I
+from kvazaar_jax.bitstream import native
+from kvazaar_jax.bitstream.bits import BitWriter
+from kvazaar_jax.bitstream.cabac import CabacEncoder
+from kvazaar_jax.bitstream.contexts import Contexts
+from kvazaar_jax.bitstream.headers import StreamParams
+from kvazaar_jax.bitstream.syntax import SliceDataEncoder
+from kvazaar_jax.constants import SLICE_I
 
 from tests.test_syntax import random_frame_data
 
@@ -36,7 +36,6 @@ def python_slice_bytes(params, fd, qp):
     (104, 72, True, 5, 45),
 ])
 def test_native_matches_python(width, height, chroma, seed, qp):
-    assert native.available()
     rng = np.random.default_rng(seed)
     params = StreamParams(width=width, height=height, qp=qp,
                           chroma_format_idc=1 if chroma else 0)
@@ -47,7 +46,7 @@ def test_native_matches_python(width, height, chroma, seed, qp):
 
 
 def test_native_zero_frame():
-    from kvazaar_tpu.bitstream.syntax import FrameData
+    from kvazaar_jax.bitstream.syntax import FrameData
     params = StreamParams(width=128, height=64, qp=22)
     fd = FrameData.empty(128, 64)
     fd.depth8[:] = 2
@@ -68,7 +67,7 @@ def python_slice_bytes_wpp(params, fd, qp):
     (192, 128, 7, 27), (128, 256, 8, 35), (64, 64, 9, 22),
 ])
 def test_native_wpp_matches_python(width, height, seed, qp):
-    from kvazaar_tpu.bitstream import native as nat
+    from kvazaar_jax.bitstream import native as nat
     rng = np.random.default_rng(seed)
     params = StreamParams(width=width, height=height, qp=qp, wpp=True)
     fd = random_frame_data(rng, width, height, True)
@@ -83,8 +82,8 @@ def test_native_wpp_matches_python(width, height, seed, qp):
     (64, 64, 22, 40, False),
 ])
 def test_native_p_matches_python(width, height, seed, qp, wpp):
-    from kvazaar_tpu.bitstream import native as nat
-    from kvazaar_tpu.constants import SLICE_P
+    from kvazaar_jax.bitstream import native as nat
+    from kvazaar_jax.constants import SLICE_P
     from tests.test_syntax import random_p_frame_data
     rng = np.random.default_rng(seed)
     params = StreamParams(width=width, height=height, qp=qp, wpp=wpp)
@@ -108,7 +107,7 @@ def test_native_p_matches_python(width, height, seed, qp, wpp):
 def test_native_wpp_parallel_byte_identical(nthreads):
     """Row-parallel CABAC (2-CTU-lag context stagger across worker
     threads) must be byte-identical to the sequential encode."""
-    from kvazaar_tpu.bitstream import native as nat
+    from kvazaar_jax.bitstream import native as nat
     from tests.test_syntax import random_p_frame_data
     rng = np.random.default_rng(33)
     params = StreamParams(width=320, height=256, qp=30, wpp=True)
@@ -122,9 +121,9 @@ def test_native_wpp_parallel_byte_identical(nthreads):
 
 
 def test_native_assemble_plane_i8():
-    from kvazaar_tpu.bitstream import native as nat
-    from kvazaar_tpu.encoder.geometry import make_intra_plan
-    from kvazaar_tpu.encoder.intra_recon import blocks_to_plane
+    from kvazaar_jax.bitstream import native as nat
+    from kvazaar_jax.encoder.geometry import make_intra_plan
+    from kvazaar_jax.encoder.intra_recon import blocks_to_plane
     rng = np.random.default_rng(7)
     plan = make_intra_plan(96, 64, 16, chroma=False)
     blocks = rng.integers(-127, 128,
@@ -141,12 +140,12 @@ def test_native_assemble_plane_i8():
 def test_native_p_multiref_matches_python(nref):
     """Multi-ref P: native ref_idx coding must be byte-identical to
     the Python serializer."""
-    from kvazaar_tpu.bitstream import native as nat
-    from kvazaar_tpu.bitstream.bits import BitWriter
-    from kvazaar_tpu.bitstream.cabac import CabacEncoder
-    from kvazaar_tpu.bitstream.contexts import Contexts
-    from kvazaar_tpu.bitstream.syntax import SliceDataEncoder
-    from kvazaar_tpu.constants import SLICE_P
+    from kvazaar_jax.bitstream import native as nat
+    from kvazaar_jax.bitstream.bits import BitWriter
+    from kvazaar_jax.bitstream.cabac import CabacEncoder
+    from kvazaar_jax.bitstream.contexts import Contexts
+    from kvazaar_jax.bitstream.syntax import SliceDataEncoder
+    from kvazaar_jax.constants import SLICE_P
     from tests.test_syntax import random_p_frame_data
     rng = np.random.default_rng(40 + nref)
     W, H = 192, 128
@@ -167,12 +166,12 @@ def test_native_p_multiref_matches_python(nref):
 def test_native_dqp_matches_python():
     """cu_qp_delta: native serializer byte-identical to Python and
     identical effective-QP normalization."""
-    from kvazaar_tpu.bitstream import native as nat
-    from kvazaar_tpu.bitstream.bits import BitWriter
-    from kvazaar_tpu.bitstream.cabac import CabacEncoder
-    from kvazaar_tpu.bitstream.contexts import Contexts
-    from kvazaar_tpu.bitstream.syntax import SliceDataEncoder
-    from kvazaar_tpu.constants import SLICE_I
+    from kvazaar_jax.bitstream import native as nat
+    from kvazaar_jax.bitstream.bits import BitWriter
+    from kvazaar_jax.bitstream.cabac import CabacEncoder
+    from kvazaar_jax.bitstream.contexts import Contexts
+    from kvazaar_jax.bitstream.syntax import SliceDataEncoder
+    from kvazaar_jax.constants import SLICE_I
     from tests.test_syntax import random_frame_data
     rng = np.random.default_rng(51)
     W, H = 192, 128
@@ -209,12 +208,12 @@ def test_native_dqp_matches_python():
 
 
 def test_native_smp_amp_matches_python():
-    from kvazaar_tpu.bitstream import native as nat
-    from kvazaar_tpu.bitstream.bits import BitWriter
-    from kvazaar_tpu.bitstream.cabac import CabacEncoder
-    from kvazaar_tpu.bitstream.contexts import Contexts
-    from kvazaar_tpu.bitstream.syntax import SliceDataEncoder
-    from kvazaar_tpu.constants import SLICE_P
+    from kvazaar_jax.bitstream import native as nat
+    from kvazaar_jax.bitstream.bits import BitWriter
+    from kvazaar_jax.bitstream.cabac import CabacEncoder
+    from kvazaar_jax.bitstream.contexts import Contexts
+    from kvazaar_jax.bitstream.syntax import SliceDataEncoder
+    from kvazaar_jax.constants import SLICE_P
     from tests.test_syntax import random_p_frame_data
     rng = np.random.default_rng(52)
     W, H = 192, 128
@@ -238,7 +237,7 @@ def test_native_smp_amp_matches_python():
                         and size >= 16 and rng.random() < 0.6):
                     part = int(rng.choice(cand))
                     fd.part8[c8y, c8x] = part
-                    from kvazaar_tpu.encoder.inter_cands import \
+                    from kvazaar_jax.encoder.inter_cands import \
                         pu_cell_rects
                     (ry, rx, _h, _w) = pu_cell_rects(
                         c8y, c8x, cells, part)[1]

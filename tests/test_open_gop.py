@@ -7,10 +7,10 @@ decoder must reconstruct bit-exactly."""
 import numpy as np
 import pytest
 
-from kvazaar_tpu.api import Encoder
-from kvazaar_tpu.bitstream.decoder import decode_stream, split_annexb
-from kvazaar_tpu.config import Config
-from kvazaar_tpu.constants import NAL_CRA_NUT, NAL_RASL_R
+from kvazaar_jax.api import Encoder
+from kvazaar_jax.bitstream.decoder import decode_stream, split_annexb
+from kvazaar_jax.config import Config
+from kvazaar_jax.constants import NAL_CRA_NUT, NAL_RASL_R
 
 pytestmark = pytest.mark.smoke
 

@@ -3,7 +3,7 @@ bitstream oracle (bitstream/decoder.py:29-33) imports FROM the encoder —
 `inverse_transform` and `predict_modes` — so a shared bug in those ops
 can no longer pass the conformance gate unnoticed (VERDICT r4 weak #8).
 
-Both models below are written straight from the H.265 text with scalar
+Both models (kvazaar_jax/refmodels.py) are written straight from the H.265 text with scalar
 loops and none of the encoder's machinery:
 
 - the DCT table is built by direct angle reduction of
@@ -11,7 +11,7 @@ loops and none of the encoder's machinery:
   standard (the encoder derives it via the DCT-II even/odd recursion,
   ops/transform.py:41 — a recursion bug would not reproduce here);
 - the inverse transform is the two-stage scalar sum of 8.6.4.2 with
-  explicit intermediate clipping (the encoder runs MXU-exact einsums,
+  explicit intermediate clipping (the encoder runs exact float einsums,
   ops/exactmm.py);
 - intra prediction is the literal per-pixel 8.4.4.2.4/.5/.6 equations
   including the inverse-angle projection and the DC/10/26 boundary
@@ -25,43 +25,12 @@ butterflies), src/intra.c:482 (kvz_intra_predict).
 import numpy as np
 import pytest
 
-from kvazaar_tpu.ops.transform import (dct_matrix_np, dst4_matrix_np,
-                                       inverse_transform)
-from kvazaar_tpu.ops.intra import (INTRA_PRED_ANGLE, INV_ANGLE,
-                                   predict_modes, smooth_refs)
+from kvazaar_jax.ops.transform import dct_matrix_np, inverse_transform
+from kvazaar_jax.ops.intra import predict_modes
+from kvazaar_jax.refmodels import (spec_dct, spec_intra_predict,
+                                   spec_inverse_transform)
 
 pytestmark = pytest.mark.smoke
-
-# Hand-tuned magnitude list of the standard: value of the 32-point
-# basis at angle index k (angle = k*pi/64), k = 0..32.  Normative
-# constants (H.265 8.6.4.2) — the same numbers any implementation must
-# carry.
-_MAG = [64, 90, 90, 90, 89, 88, 87, 85, 83, 82, 80, 78, 75, 73, 70, 67,
-        64, 61, 57, 54, 50, 46, 43, 38, 36, 31, 25, 22, 18, 13, 9, 4, 0]
-
-
-def spec_dct32():
-    """T32[i][j] = sign(cos(theta)) * MAG[reduced angle], theta =
-    i*(2j+1)*pi/64 — direct angle reduction, no recursion."""
-    t = np.zeros((32, 32), dtype=np.int64)
-    for i in range(32):
-        for j in range(32):
-            u = (i * (2 * j + 1)) % 128          # angle in pi/64 units
-            sign = 1
-            if u > 64:
-                u = 128 - u                       # cos(2pi - x) = cos(x)
-            if u > 32:
-                sign = -1                         # cos(pi - x) = -cos(x)
-                u = 64 - u
-            t[i, j] = sign * _MAG[u]
-    return t
-
-
-def spec_dct(n):
-    """T_N by the spec's subsampling of T32: T_N[i][j] = T32[i*32/N][j]."""
-    t32 = spec_dct32()
-    step = 32 // n
-    return t32[::step, :n]
 
 
 def test_dct_tables_match_direct_angle_model():
@@ -70,33 +39,6 @@ def test_dct_tables_match_direct_angle_model():
         enc = dct_matrix_np(n)
         ref = spec_dct(n)
         assert np.array_equal(enc, ref), f"DCT{n} table mismatch"
-
-
-def spec_inverse_transform(coeff, size, bitdepth=8, dst=False):
-    """Scalar two-stage inverse transform, H.265 8.6.4.2."""
-    t = (dst4_matrix_np() if dst else spec_dct(size)).astype(np.int64)
-    c = coeff.astype(np.int64)
-    shift1, shift2 = 7, 20 - bitdepth
-    n = size
-    e = np.zeros((n, n), dtype=np.int64)
-    # First (vertical) stage: e[x][y] = sum_k T[k][x] * c[k][y]
-    for x in range(n):
-        for y in range(n):
-            s = 0
-            for k in range(n):
-                s += t[k, x] * c[k, y]
-            e[x, y] = np.clip((s + (1 << (shift1 - 1))) >> shift1,
-                              -32768, 32767)
-    r = np.zeros((n, n), dtype=np.int64)
-    # Second (horizontal) stage: r[x][y] = sum_k T[k][y] * e[x][k]
-    for x in range(n):
-        for y in range(n):
-            s = 0
-            for k in range(n):
-                s += t[k, y] * e[x, k]
-            r[x, y] = np.clip((s + (1 << (shift2 - 1))) >> shift2,
-                              -32768, 32767)
-    return r.astype(np.int32)
 
 
 @pytest.mark.parametrize("size", [4, 8, 16, 32])
@@ -122,108 +64,6 @@ def test_inverse_dst_matches_scalar_spec_model(bitdepth):
         want = spec_inverse_transform(c[b], 4, bitdepth=bitdepth,
                                       dst=True)
         assert np.array_equal(ours[b], want), (bitdepth, b)
-
-
-# ---------------------------------------------------------------------------
-# Intra prediction: scalar 8.4.4.2 over the encoder's ref-vector layout
-# (ref[i] = p[-1][2N-1-i] for i<2N; ref[2N] = corner; ref[2N+1+x] =
-# p[x][-1]) — see ops/intra.py module docstring.
-# ---------------------------------------------------------------------------
-
-def _p_left(ref, n, y):
-    return int(ref[2 * n - 1 - y])
-
-
-def _p_top(ref, n, x):
-    return int(ref[2 * n + 1 + x])
-
-
-def spec_intra_predict(ref, mode, n, luma=True, bitdepth=8):
-    """Scalar H.265 8.4.4.2.4-.6 prediction of one mode.
-
-    ref: (4N+1,) substituted UNFILTERED reference vector.  Handles the
-    8.4.4.2.3 [1 2 1] smoothing choice internally (normal smoothing
-    only — strong smoothing is exercised elsewhere)."""
-    ref = np.asarray(ref, dtype=np.int64)
-    maxv = (1 << bitdepth) - 1
-
-    # 8.4.4.2.3 filtering decision (luma, N>=8; never DC)
-    use_filt = False
-    if luma and n >= 8 and mode != 1:
-        min_dist = min(abs(mode - 26), abs(mode - 10))
-        thresh = {8: 7, 16: 1, 32: 0}[n]
-        use_filt = min_dist > thresh
-    if use_filt:
-        f = np.asarray(smooth_refs(ref[None]))[0]
-    else:
-        f = ref
-    pred = np.zeros((n, n), dtype=np.int64)
-
-    if mode == 0:                       # planar 8.4.4.2.4
-        for y in range(n):
-            for x in range(n):
-                pred[y, x] = ((n - 1 - x) * _p_left(f, n, y)
-                              + (x + 1) * _p_top(f, n, n)
-                              + (n - 1 - y) * _p_top(f, n, x)
-                              + (y + 1) * _p_left(f, n, n)
-                              + n) >> (int(n).bit_length())
-        return pred.astype(np.int32)
-
-    if mode == 1:                       # DC 8.4.4.2.5
-        dc = (sum(_p_top(f, n, x) for x in range(n))
-              + sum(_p_left(f, n, y) for y in range(n)) + n) \
-            >> (int(n).bit_length())
-        pred[:, :] = dc
-        if luma and n < 32:
-            for x in range(1, n):
-                pred[0, x] = (_p_top(f, n, x) + 3 * dc + 2) >> 2
-            for y in range(1, n):
-                pred[y, 0] = (_p_left(f, n, y) + 3 * dc + 2) >> 2
-            pred[0, 0] = (_p_left(f, n, 0) + 2 * dc
-                          + _p_top(f, n, 0) + 2) >> 2
-        return pred.astype(np.int32)
-
-    # Angular 8.4.4.2.6
-    angle = int(INTRA_PRED_ANGLE[mode - 2])
-    vertical = mode >= 18
-
-    def main_ref(k):
-        # extended main reference array index k (k may go negative)
-        if k >= 0:
-            return (_p_top(f, n, k - 1) if vertical
-                    else _p_left(f, n, k - 1))
-        inv = int(INV_ANGLE[mode - 11])
-        proj = -1 + ((k * inv + 128) >> 8)
-        return (_p_left(f, n, proj) if vertical
-                else _p_top(f, n, proj))
-
-    for y in range(n):
-        for x in range(n):
-            t = (y + 1) if vertical else (x + 1)
-            idx = (t * angle) >> 5
-            fact = (t * angle) & 31
-            base = (x if vertical else y) + idx + 1
-            v = (32 - fact) * main_ref(base) + 16
-            if fact:
-                v += fact * main_ref(base + 1)
-            v >>= 5
-            pred[y, x] = v
-    if luma and n < 32:
-        # 10/26 boundary filters read the UNFILTERED refs (these modes
-        # are never smoothed: min_dist == 0).
-        if mode == 26:      # vertical: filter first column
-            for y in range(n):
-                pred[y, 0] = min(max(
-                    _p_top(ref, n, 0)
-                    + ((_p_left(ref, n, y) - int(ref[2 * n])) >> 1),
-                    0), maxv)
-        elif mode == 10:    # horizontal: filter first row
-            for x in range(n):
-                pred[0, x] = min(max(
-                    _p_left(ref, n, 0)
-                    + ((_p_top(ref, n, x) - int(ref[2 * n])) >> 1),
-                    0), maxv)
-    return pred.astype(np.int32)
 
 
 @pytest.mark.parametrize("n", [4, 8, 16, 32])

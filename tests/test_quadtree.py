@@ -5,9 +5,9 @@ recursive CU search of /root/reference/src/search.c:424-757)."""
 import numpy as np
 import pytest
 
-from kvazaar_tpu.config import Config
-from kvazaar_tpu.encoder.frame_encoder import IntraFrameEncoder, psnr
-from kvazaar_tpu.bitstream.decoder import decode_stream
+from kvazaar_jax.config import Config
+from kvazaar_jax.encoder.frame_encoder import IntraFrameEncoder, psnr
+from kvazaar_jax.bitstream.decoder import decode_stream
 
 pytestmark = pytest.mark.smoke
 

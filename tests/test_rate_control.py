@@ -5,7 +5,7 @@ produced bitrate toward the target across a short IPPP sequence
 import numpy as np
 import pytest
 
-from kvazaar_tpu.encoder.rate_control import RateController
+from kvazaar_jax.encoder.rate_control import RateController
 
 
 @pytest.mark.smoke
@@ -41,9 +41,9 @@ def test_controller_qp_bounds():
 def test_encoder_rate_control_small():
     """End-to-end: tiny all-intra clip under rate control lands near
     the target and the stream still decodes bit-exactly."""
-    from kvazaar_tpu.api import Encoder
-    from kvazaar_tpu.bitstream.decoder import decode_stream
-    from kvazaar_tpu.config import Config
+    from kvazaar_jax.api import Encoder
+    from kvazaar_jax.bitstream.decoder import decode_stream
+    from kvazaar_jax.config import Config
 
     rng = np.random.default_rng(1)
     yy, xx = np.mgrid[0:64, 0:64]
@@ -78,7 +78,7 @@ def test_gop_allocation_math():
     """GOP-level allocation (gop_allocate_bits, src/rate_control.c:72):
     the GOP target follows the smoothed spending plan and the anchor
     (lowest qp_offset) gets the largest per-picture share."""
-    from kvazaar_tpu.api import GOP_TABLES
+    from kvazaar_jax.api import GOP_TABLES
 
     rc = RateController(target_bps=800_000, fps=25, width=416,
                         height=240)
@@ -108,9 +108,9 @@ def test_encoder_gop8_rate_control():
     so one compiled program set serves the whole ladder); the stream
     still decodes bit-exactly and lands in a sane range of the
     target (driver config #5 shape, VERDICT r4 item 7)."""
-    from kvazaar_tpu.api import Encoder
-    from kvazaar_tpu.bitstream.decoder import decode_stream
-    from kvazaar_tpu.config import Config
+    from kvazaar_jax.api import Encoder
+    from kvazaar_jax.bitstream.decoder import decode_stream
+    from kvazaar_jax.config import Config
 
     rng = np.random.default_rng(3)
     w, h = 96, 64

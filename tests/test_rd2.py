@@ -5,9 +5,9 @@ kvz_get_coeff_cost src/rdo.c:208)."""
 import numpy as np
 import pytest
 
-from kvazaar_tpu.bitstream.decoder import decode_stream
-from kvazaar_tpu.config import Config, config_from_preset
-from kvazaar_tpu.encoder.frame_encoder import IntraFrameEncoder, psnr
+from kvazaar_jax.bitstream.decoder import decode_stream
+from kvazaar_jax.config import Config, config_from_preset
+from kvazaar_jax.encoder.frame_encoder import IntraFrameEncoder, psnr
 
 pytestmark = pytest.mark.heavy
 
@@ -28,13 +28,13 @@ def test_rate_model_tracks_cabac():
     """The rate model must rank TBs like the real CABAC (correlation
     gate — the model feeds argmins, not bit budgets)."""
     import jax.numpy as jnp
-    from kvazaar_tpu.bitstream.bits import BitWriter
-    from kvazaar_tpu.bitstream.cabac import CabacEncoder
-    from kvazaar_tpu.bitstream.contexts import Contexts
-    from kvazaar_tpu.bitstream.headers import StreamParams
-    from kvazaar_tpu.bitstream.syntax import FrameData, SliceDataEncoder
-    from kvazaar_tpu.constants import SLICE_I
-    from kvazaar_tpu.ops.rate import tb_rate_bits
+    from kvazaar_jax.bitstream.bits import BitWriter
+    from kvazaar_jax.bitstream.cabac import CabacEncoder
+    from kvazaar_jax.bitstream.contexts import Contexts
+    from kvazaar_jax.bitstream.headers import StreamParams
+    from kvazaar_jax.bitstream.syntax import FrameData, SliceDataEncoder
+    from kvazaar_jax.constants import SLICE_I
+    from kvazaar_jax.ops.rate import tb_rate_bits
     rng = np.random.default_rng(1)
     for size in (4, 16, 32):
         actual, est = [], []
@@ -101,7 +101,7 @@ def test_rd2_bit_exact_quadtree_cu64():
 def test_rd2_improves_rd_tradeoff():
     """rd 2 should beat rd 1 on the Lagrangian (D + lambda*R) it
     optimizes, at the same QP."""
-    from kvazaar_tpu.encoder.frame_encoder import qp_to_lambda
+    from kvazaar_jax.encoder.frame_encoder import qp_to_lambda
     w = h = 128
     y, cb, cr = _frame(w, h, seed=8)
     outs = {}

@@ -4,9 +4,9 @@ search + group zeroing (reference capability: kvz_rdoq,
 
 import numpy as np
 
-from kvazaar_tpu.config import Config
-from kvazaar_tpu.encoder.frame_encoder import IntraFrameEncoder, psnr
-from kvazaar_tpu.bitstream.decoder import decode_stream
+from kvazaar_jax.config import Config
+from kvazaar_jax.encoder.frame_encoder import IntraFrameEncoder, psnr
+from kvazaar_jax.bitstream.decoder import decode_stream
 import pytest
 
 pytestmark = pytest.mark.smoke
@@ -48,7 +48,7 @@ def test_rdoq_bit_exact_and_rd():
 
 
 def test_rdoq_levels_subset_sane():
-    from kvazaar_tpu.ops.quant import quantize, quantize_rdoq
+    from kvazaar_jax.ops.quant import quantize, quantize_rdoq
     import jax.numpy as jnp
     rng = np.random.default_rng(0)
     c = jnp.asarray(rng.integers(-2000, 2000, (8, 16, 16), np.int32))

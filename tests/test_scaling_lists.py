@@ -9,10 +9,10 @@ table generation), kvz_dequant scaling branch
 import numpy as np
 import pytest
 
-from kvazaar_tpu.api import Encoder
-from kvazaar_tpu.bitstream.decoder import decode_stream
-from kvazaar_tpu.config import Config
-from kvazaar_tpu.ops.scaling import (DEFAULT_INTRA_8X8, ScalingLists,
+from kvazaar_jax.api import Encoder
+from kvazaar_jax.bitstream.decoder import decode_stream
+from kvazaar_jax.config import Config
+from kvazaar_jax.ops.scaling import (DEFAULT_INTRA_8X8, ScalingLists,
 
                                      diag_scan_order, parse_cqmfile,
                                      upsample)

@@ -1,6 +1,6 @@
 import numpy as np
 
-from kvazaar_tpu.ops import scan
+from kvazaar_jax.ops import scan
 import pytest
 
 pytestmark = pytest.mark.smoke

@@ -6,14 +6,14 @@ instance at each QP of a ladder (the BD-rate bench and any production
 QP switch depend on this).  Reference behavior: a fresh
 kvz_encoder_open per operating point (src/encoder.c) — recast here
 as runtime re-pointing because program compilation is the expensive
-resource on TPU.
+resource on the accelerator.
 """
 
 import numpy as np
 import pytest
 
-from kvazaar_tpu.api import Encoder
-from kvazaar_tpu.config import config_from_preset
+from kvazaar_jax.api import Encoder
+from kvazaar_jax.config import config_from_preset
 
 pytestmark = pytest.mark.smoke
 

@@ -7,10 +7,10 @@ multi-NAL pictures."""
 import numpy as np
 import pytest
 
-from kvazaar_tpu.api import Encoder
-from kvazaar_tpu.bitstream.bits import split_annexb
-from kvazaar_tpu.bitstream.decoder import decode_stream
-from kvazaar_tpu.config import Config
+from kvazaar_jax.api import Encoder
+from kvazaar_jax.bitstream.bits import split_annexb
+from kvazaar_jax.bitstream.decoder import decode_stream
+from kvazaar_jax.config import Config
 
 pytestmark = pytest.mark.heavy
 

@@ -17,120 +17,16 @@ naive model breaks the loop for intra prediction):
 import numpy as np
 import pytest
 
+from kvazaar_jax.refmodels import np_mc_chroma, np_mc_luma
+
 pytestmark = pytest.mark.smoke
-
-# H.265 Table 8-11: luma 8-tap fractional interpolation coefficients.
-LUMA_TAPS = {
-    0: [0, 0, 0, 64, 0, 0, 0, 0],
-    1: [-1, 4, -10, 58, 17, -5, 1, 0],
-    2: [-1, 4, -11, 40, 40, -11, 4, -1],
-    3: [0, 1, -5, 17, 58, -10, 4, -1],
-}
-# Table 8-12: chroma 4-tap coefficients per 1/8 phase.
-CHROMA_TAPS = {
-    0: [0, 64, 0, 0], 1: [-2, 58, 10, -2], 2: [-4, 54, 16, -2],
-    3: [-6, 46, 28, -4], 4: [-4, 36, 36, -4], 5: [-4, 28, 46, -6],
-    6: [-2, 16, 54, -4], 7: [-2, 10, 58, -2],
-}
-
-
-def _clip_idx(v, n):
-    return min(max(v, 0), n - 1)
-
-
-def np_mc_luma(plane, x0, y0, mv, size, bitdepth=8):
-    """Naive 8.5.4.2.2 luma MC: per-output-sample tap sums, 14-bit
-    intermediate, then the uni-pred rounding of 8.5.4.2.3.1."""
-    h, w = plane.shape
-    fx, fy = mv[0] & 3, mv[1] & 3
-    ix, iy = x0 + (mv[0] >> 2), y0 + (mv[1] >> 2)
-    shift1 = bitdepth - 8
-    out = np.zeros((size, size), np.int64)
-    for oy in range(size):
-        for ox in range(size):
-            # Horizontal pass into a column of 8 intermediate rows.
-            acc2 = 0
-            for ty in range(8):
-                yy = _clip_idx(iy + oy + ty - 3, h)
-                acc = 0
-                for tx in range(8):
-                    xx = _clip_idx(ix + ox + tx - 3, w)
-                    acc += LUMA_TAPS[fx][tx] * int(plane[yy, xx])
-                acc >>= shift1
-                acc2 += LUMA_TAPS[fy][ty] * acc
-            val = acc2 >> 6
-            if fx == 0 and fy == 0:
-                val = int(plane[_clip_idx(iy + oy, h),
-                                _clip_idx(ix + ox, w)]) << (6 - shift1)
-            elif fy == 0:
-                # Horizontal only: one pass at shift1, scaled to 14-bit.
-                acc = 0
-                yy = _clip_idx(iy + oy, h)
-                for tx in range(8):
-                    xx = _clip_idx(ix + ox + tx - 3, w)
-                    acc += LUMA_TAPS[fx][tx] * int(plane[yy, xx])
-                val = acc >> shift1
-            elif fx == 0:
-                acc = 0
-                xx = _clip_idx(ix + ox, w)
-                for ty in range(8):
-                    yy = _clip_idx(iy + oy + ty - 3, h)
-                    acc += LUMA_TAPS[fy][ty] * int(plane[yy, xx])
-                val = acc >> shift1
-            shift3 = 14 - bitdepth       # uni-pred round, 8.5.4.2.3.1
-            out[oy, ox] = np.clip((val + (1 << (shift3 - 1))) >> shift3,
-                                  0, (1 << bitdepth) - 1)
-    return out
-
-
-def np_mc_chroma(plane, x0, y0, mv, size, bitdepth=8):
-    """Naive 4-tap chroma MC (chroma MV = luma MV, 1/8-pel units)."""
-    h, w = plane.shape
-    fx, fy = mv[0] & 7, mv[1] & 7
-    ix, iy = x0 + (mv[0] >> 3), y0 + (mv[1] >> 3)
-    shift1 = bitdepth - 8
-    shift3 = 14 - bitdepth
-    out = np.zeros((size, size), np.int64)
-    for oy in range(size):
-        for ox in range(size):
-            if fx == 0 and fy == 0:
-                val = int(plane[_clip_idx(iy + oy, h),
-                                _clip_idx(ix + ox, w)]) << (6 - shift1)
-            elif fy == 0:
-                acc = 0
-                yy = _clip_idx(iy + oy, h)
-                for tx in range(4):
-                    xx = _clip_idx(ix + ox + tx - 1, w)
-                    acc += CHROMA_TAPS[fx][tx] * int(plane[yy, xx])
-                val = acc >> shift1
-            elif fx == 0:
-                acc = 0
-                xx = _clip_idx(ix + ox, w)
-                for ty in range(4):
-                    yy = _clip_idx(iy + oy + ty - 1, h)
-                    acc += CHROMA_TAPS[fy][ty] * int(plane[yy, xx])
-                val = acc >> shift1
-            else:
-                acc2 = 0
-                for ty in range(4):
-                    yy = _clip_idx(iy + oy + ty - 1, h)
-                    acc = 0
-                    for tx in range(4):
-                        xx = _clip_idx(ix + ox + tx - 1, w)
-                        acc += CHROMA_TAPS[fx][tx] * int(plane[yy, xx])
-                    acc >>= shift1
-                    acc2 += CHROMA_TAPS[fy][ty] * acc
-                val = acc2 >> 6
-            out[oy, ox] = np.clip((val + (1 << (shift3 - 1))) >> shift3,
-                                  0, (1 << bitdepth) - 1)
-    return out
 
 
 @pytest.mark.parametrize("mv", [(0, 0), (4, 8), (1, 0), (0, 3),
                                 (5, 7), (-9, 13), (2, 2)])
 def test_mc_luma_matches_spec_model(mv):
     import jax.numpy as jnp
-    from kvazaar_tpu.ops.inter import mc_luma
+    from kvazaar_jax.ops.inter import mc_luma
     rng = np.random.default_rng(abs(mv[0]) * 10 + abs(mv[1]))
     plane = rng.integers(0, 256, (48, 48)).astype(np.int32)
     x0, y0, s = 16, 8, 8
@@ -145,7 +41,7 @@ def test_mc_luma_matches_spec_model(mv):
                                 (13, -7)])
 def test_mc_chroma_matches_spec_model(mv):
     import jax.numpy as jnp
-    from kvazaar_tpu.ops.inter import mc_chroma
+    from kvazaar_jax.ops.inter import mc_chroma
     rng = np.random.default_rng(7)
     plane = rng.integers(0, 256, (32, 32)).astype(np.int32)
     x0, y0, s = 8, 4, 4
@@ -246,7 +142,7 @@ def test_deblock_luma_vertical_edge_matches_spec_model(qp, seed):
     equals the per-row spec transcription (8-row plane, single edge at
     x = 8; horizontal pass disabled via bs_h = 0)."""
     import jax.numpy as jnp
-    from kvazaar_tpu.ops.deblock import deblock_plane
+    from kvazaar_jax.ops.deblock import deblock_plane
     rng = np.random.default_rng(seed)
     # Smooth-ish content so both strong and weak branches occur.
     base = rng.integers(60, 196, (1, 16)).astype(np.int64)
@@ -297,7 +193,7 @@ def np_sao_edge(rec, eo_class, offsets, bitdepth=8):
 @pytest.mark.parametrize("kind", ["band", "eo0", "eo1", "eo2", "eo3"])
 def test_sao_matches_spec_model(kind):
     import jax.numpy as jnp
-    from kvazaar_tpu.ops.sao import apply_sao_plane
+    from kvazaar_jax.ops.sao import apply_sao_plane
     rng = np.random.default_rng(11)
     rec = rng.integers(0, 256, (64, 64)).astype(np.int32)
     off = np.array([2, -1, 1, -2], np.int32)
@@ -337,7 +233,7 @@ def np_dequant(level, qp, size, bitdepth=8):
                                      (32, 45)])
 def test_dequant_matches_spec_model(size, qp):
     import jax.numpy as jnp
-    from kvazaar_tpu.ops.quant import dequantize
+    from kvazaar_jax.ops.quant import dequantize
     rng = np.random.default_rng(size)
     lv = rng.integers(-100, 101, (1, size, size)).astype(np.int32)
     got = np.asarray(dequantize(jnp.asarray(lv), qp, size, 8))[0]

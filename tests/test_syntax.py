@@ -9,13 +9,13 @@ scan orders, and frame shapes including non-CTU-multiple boundaries.
 import numpy as np
 import pytest
 
-from kvazaar_tpu.bitstream.bits import BitReader, BitWriter
-from kvazaar_tpu.bitstream.cabac import CabacDecoder, CabacEncoder
-from kvazaar_tpu.bitstream.contexts import Contexts
-from kvazaar_tpu.bitstream.headers import StreamParams
-from kvazaar_tpu.bitstream.syntax import (FrameData, SliceDataDecoder,
+from kvazaar_jax.bitstream.bits import BitReader, BitWriter
+from kvazaar_jax.bitstream.cabac import CabacDecoder, CabacEncoder
+from kvazaar_jax.bitstream.contexts import Contexts
+from kvazaar_jax.bitstream.headers import StreamParams
+from kvazaar_jax.bitstream.syntax import (FrameData, SliceDataDecoder,
                                           SliceDataEncoder)
-from kvazaar_tpu.constants import SLICE_I
+from kvazaar_jax.constants import SLICE_I
 
 pytestmark = pytest.mark.smoke
 
@@ -172,7 +172,7 @@ def random_p_frame_data(rng, width, height, chroma=True):
 
 
 def roundtrip_p(fd, params):
-    from kvazaar_tpu.constants import SLICE_P
+    from kvazaar_jax.constants import SLICE_P
     w = BitWriter()
     enc = SliceDataEncoder(params, fd, Contexts(SLICE_P, params.qp),
                            CabacEncoder(w))

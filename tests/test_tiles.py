@@ -10,9 +10,9 @@ encoder states (src/encoderstate.c:860-965), PPS tile syntax
 import numpy as np
 import pytest
 
-from kvazaar_tpu.api import Encoder
-from kvazaar_tpu.bitstream.decoder import decode_stream
-from kvazaar_tpu.config import Config
+from kvazaar_jax.api import Encoder
+from kvazaar_jax.bitstream.decoder import decode_stream
+from kvazaar_jax.config import Config
 
 pytestmark = pytest.mark.heavy
 
@@ -92,7 +92,7 @@ def test_tiles_fewer_bits_than_independent_frames():
 def test_tiles_wavefront_shorter():
     """Tile boundaries cut dependencies: the recon schedule of a tiled
     plan must be strictly shorter than the untiled one."""
-    from kvazaar_tpu.encoder.geometry import make_intra_plan
+    from kvazaar_jax.encoder.geometry import make_intra_plan
     plain = make_intra_plan(256, 256, 16, chroma=False)
     tiled = make_intra_plan(256, 256, 16, chroma=False, tiles=(2, 2))
     assert tiled.n_steps < plain.n_steps
@@ -106,10 +106,10 @@ def test_tile_band_sharding_bit_identical(ndev):
     import jax.numpy as jnp
     from jax.sharding import Mesh
 
-    from kvazaar_tpu.encoder.geometry import make_intra_plan
-    from kvazaar_tpu.encoder.intra_recon import reconstruct_frames
-    from kvazaar_tpu.encoder.intra_search import search_frame_modes
-    from kvazaar_tpu.parallel.sharding import \
+    from kvazaar_jax.encoder.geometry import make_intra_plan
+    from kvazaar_jax.encoder.intra_recon import reconstruct_frames
+    from kvazaar_jax.encoder.intra_search import search_frame_modes
+    from kvazaar_jax.parallel.sharding import \
         intra_encode_tiles_sharded
     if len(jax.devices()) < ndev:
         pytest.skip("needs virtual device mesh")
@@ -147,13 +147,13 @@ def test_tiles_plus_wpp_ippp_bit_exact():
 
 def test_tiles_plus_wpp_entry_point_count():
     """Substream count = sum over tiles of tile CTU rows."""
-    from kvazaar_tpu.bitstream.headers import StreamParams
-    from kvazaar_tpu.bitstream.syntax import (FrameData,
+    from kvazaar_jax.bitstream.headers import StreamParams
+    from kvazaar_jax.bitstream.syntax import (FrameData,
                                               SliceDataEncoder)
-    from kvazaar_tpu.bitstream.bits import BitWriter
-    from kvazaar_tpu.bitstream.cabac import CabacEncoder
-    from kvazaar_tpu.bitstream.contexts import Contexts
-    from kvazaar_tpu.constants import SLICE_I
+    from kvazaar_jax.bitstream.bits import BitWriter
+    from kvazaar_jax.bitstream.cabac import CabacEncoder
+    from kvazaar_jax.bitstream.contexts import Contexts
+    from kvazaar_jax.constants import SLICE_I
     import sys
     sys.path.insert(0, "tests")
     from test_syntax import random_frame_data

@@ -8,9 +8,9 @@ add_temporal_candidate (src/inter.c:713,1001)."""
 
 import numpy as np
 
-from kvazaar_tpu.api import Encoder
-from kvazaar_tpu.bitstream.decoder import decode_stream
-from kvazaar_tpu.config import Config
+from kvazaar_jax.api import Encoder
+from kvazaar_jax.bitstream.decoder import decode_stream
+from kvazaar_jax.config import Config
 import pytest
 
 pytestmark = pytest.mark.heavy

@@ -7,9 +7,9 @@ kvz_encode_transform_coeff src/encode_coding_tree.c:461-472)."""
 import numpy as np
 import pytest
 
-from kvazaar_tpu.api import Encoder
-from kvazaar_tpu.bitstream.decoder import decode_stream
-from kvazaar_tpu.config import Config
+from kvazaar_jax.api import Encoder
+from kvazaar_jax.bitstream.decoder import decode_stream
+from kvazaar_jax.config import Config
 
 pytestmark = pytest.mark.smoke
 
@@ -91,7 +91,7 @@ def test_tr_split_rd_not_worse():
         err = (rec[0].astype(np.int64)
                - frames[0][0].astype(np.int64))
         outs[td] = (len(stream) * 8, float((err * err).sum()))
-    from kvazaar_tpu.encoder.frame_encoder import qp_to_lambda
+    from kvazaar_jax.encoder.frame_encoder import qp_to_lambda
     lam = qp_to_lambda(27)
     rd0 = outs[0][1] + lam * outs[0][0]
     rd1 = outs[1][1] + lam * outs[1][0]

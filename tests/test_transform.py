@@ -1,8 +1,8 @@
 import numpy as np
 import jax.numpy as jnp
 
-from kvazaar_tpu.ops import transform as tr
-from kvazaar_tpu.ops import quant as q
+from kvazaar_jax.ops import transform as tr
+from kvazaar_jax.ops import quant as q
 import pytest
 
 pytestmark = pytest.mark.smoke

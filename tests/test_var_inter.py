@@ -7,9 +7,9 @@ CUs (reference capability: the inter half of search_cu,
 import numpy as np
 import pytest
 
-from kvazaar_tpu.api import Encoder
-from kvazaar_tpu.bitstream.decoder import decode_stream
-from kvazaar_tpu.config import Config
+from kvazaar_jax.api import Encoder
+from kvazaar_jax.bitstream.decoder import decode_stream
+from kvazaar_jax.config import Config
 
 pytestmark = pytest.mark.smoke
 
@@ -141,3 +141,4 @@ def test_var_p_sao_rdoq():
     enc = Encoder(cfg)
     stream, res = _encode_all(enc, frames)
     _assert_decode_matches(stream, enc._intra.params, res, w, h)
+

@@ -10,7 +10,7 @@ the frame-wide numpy forms (merge_amvp_var_vec etc.).
 import numpy as np
 import pytest
 
-from kvazaar_tpu.encoder.inter_cands import (
+from kvazaar_jax.encoder.inter_cands import (
     merge_amvp_var_b_scalar, merge_amvp_var_b_vec,
     merge_amvp_var_scalar, merge_amvp_var_vec, var_skip8_scalar,
     var_skip8_vec)

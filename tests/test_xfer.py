@@ -10,7 +10,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from kvazaar_tpu.ops.xfer import (esc_capacity, pack_levels,
+from kvazaar_jax.ops.xfer import (esc_capacity, pack_levels,
                                   unpack_levels)
 
 
@@ -65,7 +65,7 @@ def test_int16_escape_values():
 
 # ---- source (host->device) delta pack ----
 
-from kvazaar_tpu.ops.xfer import pack_source_host, unpack_source_device
+from kvazaar_jax.ops.xfer import pack_source_host, unpack_source_device
 
 
 def _src_roundtrip(planes):
@@ -114,8 +114,8 @@ def test_source_pack_flat_long_gaps():
 def test_source_pack_encode_equivalence():
     """submit_frames' packed upload must produce the identical
     bitstream as the raw upload path."""
-    from kvazaar_tpu.config import Config
-    from kvazaar_tpu.encoder.frame_encoder import IntraFrameEncoder
+    from kvazaar_jax.config import Config
+    from kvazaar_jax.encoder.frame_encoder import IntraFrameEncoder
     yy, xx = np.mgrid[0:64, 0:96]
     y = np.clip(128 + 50 * np.sin(xx / 13.0) * np.cos(yy / 7.0),
                 0, 255).astype(np.uint8)

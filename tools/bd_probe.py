@@ -20,8 +20,8 @@ QPS = (22, 27, 32, 37)
 
 
 def run_ours(clip, qps, **cfg_over):
-    from kvazaar_tpu.api import Encoder
-    from kvazaar_tpu.config import config_from_preset
+    from kvazaar_jax.api import Encoder
+    from kvazaar_jax.config import config_from_preset
     rs, ps = [], []
     for qp in qps:
         cfg = config_from_preset("medium", width=W, height=H, qp=qp,
